@@ -3,7 +3,7 @@
 #
 # Build:  docker build -t ebcc-tpu .
 # Run:    docker run --rm ebcc-tpu python -m pytest tests/ -q
-# On TPU VMs install the matching jax[tpu] wheel instead of jax[cpu].
+# On GPU hosts install the CUDA wheel, "jax[cuda12]", instead of jax[cpu].
 
 FROM python:3.12-slim
 

@@ -1,6 +1,6 @@
-"""EBCC-TPU: a TPU-native error-bounded climate compressor.
+"""EBCC-TPU: an error-bounded climate compressor for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of jia-yli/EBCC
+A from-scratch JAX/XLA re-design of the capabilities of jia-yli/EBCC
 (an HDF5-filter error-bounded compressor for 2-D geophysical fields): a
 JPEG2000-style wavelet base layer plus an embedded bitplane-coded residual
 layer, with max-error / relative-error / pointwise error-bound enforcement,

@@ -4,7 +4,7 @@ Functional equivalent of the reference container (written
 /root/reference/src/j2k_codec.h:706-736, parsed :1098-1112), redesigned: the
 byte layout differs (this codec's bitstreams are not OpenJPEG/SPIHT streams)
 but the field set is a superset — min/max, residual min/max, stream sizes,
-constant-field short form — plus the header metadata the TPU decoder needs
+constant-field short form — plus the header metadata the device decoder needs
 (DC offsets, top bitplanes, truncation points).
 """
 

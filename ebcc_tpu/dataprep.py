@@ -139,3 +139,16 @@ def cache_npy(path: str, produce, *, overwrite: bool = False) -> np.ndarray:
     np.save(tmp, arr)
     os.replace(tmp, path)
     return arr
+
+
+def synthetic_frames(n: int, h: int = 721, w: int = 1440,
+                     sigma: float = 0.05, seed: int = 0) -> np.ndarray:
+    """Seeded stand-in for ERA5 2 m temperature: the smooth field
+    ``260 + 25 sin(pi y/h) cos(2 pi x/w)`` plus independent N(0, sigma)
+    noise per frame.  float32 [n, h, w]."""
+    y, x = np.mgrid[0:h, 0:w]
+    base = (260 + 25 * np.sin(y / h * np.pi) *
+            np.cos(x / w * 2 * np.pi)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    return np.stack([base + rng.normal(0, sigma, base.shape).astype(
+        np.float32) for _ in range(n)])

@@ -3,7 +3,7 @@
 The reference's "model zoo" is its family of wrapper compressors
 (/root/reference/ebcc_wrapper/): direct pointwise, delta-in-pressure,
 delta-in-time, rate-optimised (golden-section), forecast-predictive and
-video-baseline.  Each has a TPU-native equivalent here.
+video-baseline.  Each has a batched device equivalent here.
 """
 
 from .delta import DeltaCompressor

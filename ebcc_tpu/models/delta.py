@@ -1,6 +1,6 @@
 """Delta-chain compression along time or pressure-level axes.
 
-TPU-native equivalent of the reference's two delta compressors:
+Batched device equivalent of the reference's two delta compressors:
 
 * ``PressureLevelDeltaCompressor`` (/root/reference/ebcc_wrapper/
   delta_compression.py:280-432): level 0 direct; level i compresses the

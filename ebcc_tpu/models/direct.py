@@ -1,6 +1,6 @@
 """Pointwise-bounded bytes-in/bytes-out compressor with a hard guarantee.
 
-TPU-native equivalent of ``EBCCDirectWrapper``
+Batched device equivalent of ``EBCCDirectWrapper``
 (/root/reference/ebcc_wrapper/direct_wrapper.py:40-151).  The reference
 stacks [data, error_bound], round-trips a tempfile HDF5 with filter 310,
 then appends an exact-value patch for any points still violating
@@ -62,7 +62,6 @@ class DirectCompressor:
                  config: EBCCConfig | None = None, rate_candidates=None):
         import dataclasses
 
-        from ..runtime import native as _native
         self.ratio = float(ratio)
         # per-slice rate optimisation: sweep these base-quantile candidates
         # (one pipelined multi-q dispatch, models/rate_opt.py engine) and
@@ -79,15 +78,13 @@ class DirectCompressor:
         if self.config.decode_backend == "auto":
             # the exact-value patch is computed against decompress()'s
             # reconstruction, so compress and EVERY later decompress must
-            # reconstruct identically — "auto" resolves differently per
-            # machine (tunnel vs PCIe), which would let a near-threshold
-            # unpatched point drift past the bound.  Pin the deterministic
-            # backend: the native CPU decoder when built (bit-stable
-            # across hosts, the role the reference's C library plays),
-            # else the device path.
-            self.config = dataclasses.replace(
-                self.config,
-                decode_backend="cpu" if _native.HAVE_NATIVE else "device")
+            # reconstruct identically — the device recon's last bits
+            # depend on the compiler and device, which would let a
+            # near-threshold unpatched point drift past the bound.  Pin
+            # the deterministic backend: the native CPU decoder (bit-stable
+            # across hosts, the role the reference's C library plays).
+            self.config = dataclasses.replace(self.config,
+                                              decode_backend="cpu")
 
     # -- patch encoding (direct_wrapper.py:85-100) --------------------------
     # Like the reference's stack-B failure coding (image_compression.py:

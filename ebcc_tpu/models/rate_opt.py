@@ -6,7 +6,7 @@ golden-section-searches the JP2K cratio, where *every probe is a full
 JP2K encode+decode of the whole stack* — the dominant cost of the whole
 system (SURVEY.md §3.4).
 
-The TPU codec removes most of that search by construction: its base layer is
+This codec removes most of that search by construction: its base layer is
 an *embedded* bitstream, so the minimal feasible truncation at the bound is
 found in one batched device call.  The one remaining degree of freedom is the
 base-layer feasibility quantile ``q`` (how much error the base layer may

@@ -1,7 +1,7 @@
-"""Embedded quadtree bitplane coder (TPU-native zerotree coding).
+"""Embedded quadtree bitplane coder (vectorised zerotree coding).
 
 This replaces the reference's SPIHT coder (/root/reference/src/spiht/spiht_re.c)
-with a formulation designed for XLA/TPU:
+with a formulation designed for XLA on accelerators:
 
 * SPIHT walks LIP/LSP/LIS lists with data-dependent control flow, one bit at a
   time.  Here significance is organised as a *quadtree max pyramid* over the
@@ -136,8 +136,7 @@ def _cum_counts(vals, th):
     return jnp.sum(le, axis=(-2, -1), dtype=jnp.int32)
 
 
-def segment_counts(an: Analysis, spec: CoderSpec, use_pallas: bool = False,
-                   pallas_interpret: bool = False):
+def segment_counts(an: Analysis, spec: CoderSpec):
     """Number of bits emitted per (plane, segment); closed form.
 
     Returns int32 [B, nplanes, nsegments].  Segment order per plane:
@@ -150,11 +149,6 @@ def segment_counts(an: Analysis, spec: CoderSpec, use_pallas: bool = False,
     work than the per-plane mask formulation it replaced, with INTEGER
     results identical by construction
     (tests/test_bitplane.py::test_segment_counts_matches_mask_formulation).
-
-    ``use_pallas``: compute the level-0 counts (the 3J large segments)
-    with the fused VMEM kernel (ops/pallas_kernels.py) — bit-identical
-    results, scheduling only.  ``pallas_interpret`` runs that kernel in
-    interpret mode (CPU testing).
     """
     g, j = spec.group_levels, spec.nchunks
     p = spec.nplanes
@@ -180,25 +174,10 @@ def segment_counts(an: Analysis, spec: CoderSpec, use_pallas: bool = False,
             segs.append(jnp.where(par_ge, own_p, 0))
         else:
             segs.append(own_p - 4 * at_pm1(cg[k + 1]))
-    if use_pallas:
-        from . import pallas_kernels as pk
-        if not pk.level0_supported(spec.height, spec.width, g, j):
-            use_pallas = False
     if (spec.height % j) or ((spec.height // 2) % j):
         # stripes are not even row-multiples: the histogram reshape does
         # not apply — per-plane mask formulation for level 0
         return _level0_counts_masks(an, spec, segs)
-    if use_pallas:
-        par_full = _upsample2(an.smax[1])
-        k0 = pk.level0_counts(an.msb, par_full, spec.nplanes, j,
-                              interpret=pallas_interpret)
-        k0 = k0[:, :, ::-1, :]  # kernel emits planes ascending
-        for jj in range(j):
-            segs.append(k0[:, jj, :, 0])
-            segs.append(k0[:, jj, :, 1])
-        for jj in range(j):
-            segs.append(k0[:, jj, :, 2])
-        return jnp.stack(segs, axis=-1)  # [B, P, S]
     # level 0, per stripe (stripe heights are even multiples, so each
     # smax[1] cell's 4 pixels lie in one stripe):
     #   sig_j    = #{par >= p & msb <= p} = Cm_j(p) - 4*Cs1_j(p-1)

@@ -1,9 +1,9 @@
-"""Batched CDF 9/7 lifting DWT for TPU (JAX).
+"""Batched CDF 9/7 lifting DWT (JAX).
 
-TPU-native re-design of the reference's scalar lifting loops
+Vectorised re-design of the reference's scalar lifting loops
 (/root/reference/src/spiht/dwt.h:81-250).  The reference transforms one
 row/column at a time in C; here every lifting step is a dense vector op over
-``[..., H, W]`` arrays so XLA maps it onto the VPU and fuses the whole ladder.
+``[..., H, W]`` arrays so XLA can fuse the whole ladder.
 
 Boundary handling matches the reference exactly:
 
@@ -84,8 +84,8 @@ def _along_cols(fn, x):
 # ---- column-direction lifting without transposes ----
 #
 # ``_along_cols`` materialises two [..., W, H] transposes per level per
-# direction; on TPU those are real HBM copies that dominate the lifting's
-# own traffic.  The *_v functions below run the identical arithmetic
+# direction; those are real device-memory copies that would dominate the
+# lifting's own traffic.  The *_v functions below run the identical arithmetic
 # directly on axis -2 (same ops, same order => bit-identical results —
 # tests/test_dwt.py::test_vertical_matches_transposed) so the 2-D
 # transforms never transpose.

@@ -2,7 +2,7 @@
 
 The reference processes each 721x1440 frame whole on one core; SURVEY.md
 §2.4 calls out intra-frame spatial decomposition with halo exchange for the
-lifting stencils as the TPU-native capability with no reference counterpart.
+lifting stencils as the device-native capability with no reference counterpart.
 This module implements it: frames are row-sharded over a mesh axis, the
 row-direction lifting runs locally, and the column-direction lifting
 exchanges one boundary row per lifting step with the neighbouring shard via

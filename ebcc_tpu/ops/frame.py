@@ -1,6 +1,6 @@
 """Frame preparation: padding, scaling, DC removal.
 
-TPU-native equivalents of the reference's framing code
+Batched equivalents of the reference's framing code
 (/root/reference/src/spiht/dwt.h:35-72 ``load_image`` and :252-301
 ``sub_dc``/``add_dc``/``normalize``), batched over a leading frame axis.
 """

@@ -10,6 +10,8 @@ caller requests.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +63,13 @@ class ShardedCodec:
         return self.codec.resid
 
 
+@functools.lru_cache(maxsize=8)
+def sharded_codec(h: int, w: int, config: EBCCConfig, mesh) -> ShardedCodec:
+    """One ShardedCodec (and so one set of compiled programs) per
+    geometry, config and mesh."""
+    return ShardedCodec(h, w, config, mesh)
+
+
 def compress_sharded(data, config: EBCCConfig | None = None, mesh=None,
                      error_bound=None):
     """Blob-compatible compress() that dispatches one sharded device call
@@ -75,5 +84,5 @@ def compress_sharded(data, config: EBCCConfig | None = None, mesh=None,
     frames = data.reshape(-1, data.shape[-2], data.shape[-1])
     mesh = mesh if mesh is not None else make_mesh()
     cfg = dataclasses.replace(config, max_batch=frames.shape[0])
-    sc = ShardedCodec(frames.shape[-2], frames.shape[-1], cfg, mesh)
+    sc = sharded_codec(frames.shape[-2], frames.shape[-1], cfg, mesh)
     return api.compress(frames, cfg, error_bound=error_bound, codec=sc)

@@ -1,8 +1,8 @@
-"""Device mesh construction for multi-chip / multi-host runs.
+"""Device mesh construction for multi-device / multi-host runs.
 
 The reference's only parallelism is process pools + SLURM array jobs over
 independent frames (/root/reference/scripts/run_pointwise.py:76-79,
-ebcc_wrapper/delta_compression.py:223-245).  The TPU-native equivalent is a
+ebcc_wrapper/delta_compression.py:223-245).  The equivalent here is a
 ``jax.sharding.Mesh`` with a ``data`` axis (frames / pressure levels / time
 steps — the reference's process-pool axis) and an optional ``space`` axis
 (intra-frame spatial tiling with halo exchange, a new capability with no

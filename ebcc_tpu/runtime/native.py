@@ -1,20 +1,25 @@
 """ctypes loader for the native host runtime (libebcc_host.so).
 
-The reference's runtime is native C (SURVEY.md §2.1); the TPU framework's
-device path is JAX/XLA, and this module is its native *host* runtime: a
-batched zstd entropy stage and batched bitstream repacking, built from
-``native/ebcc_host.cc``.  Everything degrades gracefully to the pure-Python
-implementations in :mod:`ebcc_tpu.api` when the library is missing —
-``HAVE_NATIVE`` tells you which path is active.
+The reference's runtime is native C (SURVEY.md §2.1); this framework's
+device path is JAX/XLA, and this module is its native *host* runtime: the
+bitplane coder, a batched zstd entropy stage, the u16 quantiser and the
+standalone CPU encoder/decoder, built from ``native/*.cc``.  The device
+path needs it: :func:`require` raises when it cannot be loaded.
 
-Build (once per machine): ``make -C native`` at the repo root, or
-:func:`build` here.
+The library is compiled with ``-march=native`` for the machine that builds
+it, so it is rebuilt from the committed sources (``make -C native clean
+all``) whenever it is missing, older than a source file, or was built on
+another host (:func:`is_stale`).  ``HAVE_NATIVE`` says whether it loaded;
+``BUILD_ERROR`` holds the compiler's output when the build failed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -22,43 +27,119 @@ import numpy as np
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_HERE, "native")
-_LIB_PATH = os.environ.get(
-    "EBCC_HOST_LIB", os.path.join(_NATIVE_DIR, "libebcc_host.so"))
+_USER_LIB = os.environ.get("EBCC_HOST_LIB")
+_LIB_PATH = _USER_LIB or os.path.join(_NATIVE_DIR, "libebcc_host.so")
+# host fingerprint of the last successful in-tree build
+_STAMP_PATH = os.path.join(_NATIVE_DIR, "libebcc_host.stamp")
 
 _lib = None
+BUILD_ERROR: str | None = None
+LAST_BUILD_S: float | None = None  # seconds of this process's last build
+
+
+def host_id() -> str:
+    """Fingerprint of this build host: node name plus the CPU model and
+    feature flags that ``-march=native`` compiles for."""
+    cpu = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            keep = [ln for ln in f if ln.startswith(("model name", "flags"))]
+        cpu = "".join(sorted(set(keep)))
+    except OSError:
+        pass
+    raw = "\n".join((platform.node(), platform.machine(), cpu))
+    return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def _sources() -> list[str]:
+    return (glob.glob(os.path.join(_NATIVE_DIR, "*.cc")) +
+            [os.path.join(_NATIVE_DIR, "Makefile")])
+
+
+def is_stale() -> bool:
+    """Whether the in-tree library must be rebuilt: missing, older than a
+    committed source, or built on another host."""
+    try:
+        built = os.path.getmtime(_LIB_PATH)
+        with open(_STAMP_PATH) as f:
+            stamp = f.read().strip()
+    except OSError:
+        return True
+    if any(os.path.getmtime(src) > built for src in _sources()):
+        return True
+    return stamp != host_id()
 
 
 def build(quiet: bool = True) -> bool:
-    """Compile the native library in-tree.  Returns success."""
-    try:
-        subprocess.run(["make", "-C", _NATIVE_DIR],
-                       check=True,
-                       stdout=subprocess.DEVNULL if quiet else None,
-                       stderr=subprocess.DEVNULL if quiet else None)
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+    """``make -C native clean all`` from the committed sources, then stamp
+    the library with this host's fingerprint.  Returns success; the
+    compiler output of a failed build is kept in ``BUILD_ERROR``."""
+    global BUILD_ERROR, LAST_BUILD_S
+    import fcntl
+    import time
+
+    # one build at a time across processes (parallel test workers)
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not is_stale():
+            return True
+        t0 = time.perf_counter()
+        # clean first, in its own make run: a parallel "clean all" races
+        subprocess.run(["make", "-C", _NATIVE_DIR, "clean"],
+                       capture_output=True)
+        r = subprocess.run(["make", "-C", _NATIVE_DIR,
+                            "-j", str(os.cpu_count() or 1), "all"],
+                           capture_output=True, text=True)
+        LAST_BUILD_S = time.perf_counter() - t0
+        if not quiet:
+            print(r.stdout + r.stderr, end="")
+        if r.returncode != 0 or not os.path.exists(_LIB_PATH):
+            BUILD_ERROR = (r.stdout + r.stderr)[-4000:]
+            return False
+        with open(_STAMP_PATH, "w") as f:
+            f.write(host_id())
+        BUILD_ERROR = None
+        return True
 
 
 def _load():
-    global _lib
+    global _lib, BUILD_ERROR
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        if not build():
-            return None
+    if not _USER_LIB and is_stale() and not build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    except OSError as e:
+        BUILD_ERROR = str(e)
         return None
     lib.ebcc_zstd_bound.restype = ctypes.c_size_t
     lib.ebcc_zstd_bound.argtypes = [ctypes.c_size_t]
     lib.ebcc_host_version.restype = ctypes.c_int
+    lib.ebcc_coder_fast_path.restype = ctypes.c_int
+    lib.ebcc_coder_fast_path.argtypes = []
     _lib = lib
     return lib
 
 
 HAVE_NATIVE = _load() is not None
+
+
+def require() -> None:
+    """Raise unless the native runtime is loaded: the device path's host
+    coder, zstd stage and u16 quantiser live there, and there is no
+    substitute for them."""
+    if _load() is None:
+        raise RuntimeError(
+            "native host runtime unavailable (make -C native failed):\n"
+            + (BUILD_ERROR or ""))
+
+
+def coder_path() -> str:
+    """Which bitplane coder the library dispatches to: "bmi2" (the
+    word-parallel path) or "scalar"."""
+    require()
+    return "bmi2" if _lib.ebcc_coder_fast_path() else "scalar"
 
 
 def force_coder_path(mode: int):

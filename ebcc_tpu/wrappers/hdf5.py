@@ -14,7 +14,7 @@ This framework offers the same integration at three levels:
   CDO, netCDF, anything.  :func:`create_filtered_dataset` /
   ``EBCCFilterParams.hdf5_kwargs`` wire a dataset to them.
 * **Device-accelerated chunk writes**: :func:`write_filtered_dataset`
-  compresses on the TPU and stores the chunks directly (same on-disk
+  compresses on the device and stores the chunks directly (same on-disk
   format; byte-identical to the plugin path on the CPU backend).
 * **Opaque-dataset helpers**: :func:`write_dataset` / :func:`read_dataset`
   store a whole container blob as a uint8 dataset with self-describing
@@ -189,7 +189,7 @@ def write_filtered_dataset(group, name: str, data,
                            config: EBCCConfig | None = None,
                            error_bound=None):
     """Create a REAL filtered float dataset (one frame per chunk),
-    compressing through the batched TPU path.
+    compressing through the batched device path.
 
     Readers that load the plugin (``register_plugin_path()`` or
     HDF5_PLUGIN_PATH) see a plain float32 dataset — the reference's

@@ -2,7 +2,7 @@
 
 Equivalent of ``EBCCZarrFilter`` (/root/reference/src/zarr_filter.py:18-84),
 which binds the C codec into numcodecs via ctypes.  Here the codec is the
-in-process TPU pipeline; the shim is a plain ``numcodecs.abc.Codec`` whose
+in-process device pipeline; the shim is a plain ``numcodecs.abc.Codec`` whose
 ``encode``/``decode`` call :mod:`ebcc_tpu.api` directly.
 
 numcodecs is an optional dependency: importing this module without it raises

@@ -9,8 +9,9 @@
 // Bits are MSB-first within bytes.  Reads past the stream end yield 0.
 //
 // Rationale: bit-serial packing is the one stage of the pipeline that maps
-// badly onto the TPU (1M-element scatters per segment per plane); the
-// reference implements the analogous stage (SPIHT, spiht_re.c) natively too.
+// badly onto a vector accelerator (1M-element scatters per segment per
+// plane); the reference implements the analogous stage (SPIHT, spiht_re.c)
+// natively too.
 // Transforms, quantisation and the truncation search stay on device; this
 // library only turns already-chosen (coefficients, truncation) pairs into
 // bytes and back, batched over frames with one thread per frame.
@@ -391,6 +392,9 @@ extern "C" {
 // the word-parallel path
 void ebcc_coder_force_path(int v) { g_force_path = v; }
 
+// 1 when the coder currently dispatches to the word-parallel BMI2 path
+int ebcc_coder_fast_path() { return use_fast() ? 1 : 0; }
+
 // coef: int32 [n, h*w]; trunc_bits: int64 [n]; out: zeroed uint8
 // [n, cap_bytes] arena.
 void ebcc_coder_encode_batch(const int32_t* coef, int n, int h, int w, int g,
@@ -406,7 +410,7 @@ void ebcc_coder_encode_batch(const int32_t* coef, int n, int h, int w, int g,
 }
 
 // float32 variant: coefficients are exact integers (|v| < 2^22) shipped as
-// float32 because int32 D2H transfers are slow on some TPU hosts.
+// float32, the exact transfer form the device pipeline emits.
 void ebcc_coder_encode_batch_f32(const float* coef, int n, int h, int w,
                                  int g, int nplanes, int nchunks,
                                  const int64_t* trunc_bits, uint8_t* out,

@@ -2,7 +2,7 @@
 //
 // The reference implements its whole runtime in C (/root/reference/src/
 // j2k_codec.h: buffer glue :22-80, zstd stage :656-658, container :704-743).
-// In the TPU framework the *compute* path is JAX/XLA on device; this library
+// In this framework the *compute* path is JAX/XLA on device; this library
 // is the native equivalent of the host-side runtime around it:
 //
 //   * zstd entropy stage (compress/decompress, multi-frame batched with

@@ -1,6 +1,6 @@
 """Compression sweep: lossless baselines vs EBCC-TPU error-bound grid.
 
-TPU-native equivalent of /root/reference/scripts/hdf5_compression_sweep.py:
+Equivalent of the reference's scripts/hdf5_compression_sweep.py:
 runs gzip/lzf lossless baselines (:87-94 there) and an EBCC max-error sweep
 (:118-170) over a stack of frames, writing one CSV.  Where the reference
 fans out with multiprocessing.Pool, the sweep here batches all frames into

@@ -35,10 +35,14 @@ def main():
         data = (260 + 25 * np.sin(y / 721 * np.pi) *
                 np.cos(x / 1440 * 2 * np.pi)).astype(np.float32)
 
+    # the MB/s column is a device figure: refuse to run without a GPU
+    from ebcc_tpu.utils import device
+    from ebcc_tpu.utils.compile_cache import enable_compile_cache
+    info = device.require_gpu()
+    print(f"device: {device.nvidia_smi_line()}; {info}", file=sys.stderr)
     # persistent compilation cache: the multi-q optimiser program is a
     # multi-minute compile at full frame size; repeat runs skip it
-    from ebcc_tpu.utils import health
-    health.enable_compile_cache()
+    enable_compile_cache()
 
     from ebcc_tpu import EBCCConfig, RateOptimizedCompressor, ResidualMode
     from ebcc_tpu import compress, decompress

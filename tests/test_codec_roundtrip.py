@@ -146,7 +146,7 @@ class TestERA5FullFrame:
         fixture (test_data.npy) is 109.1x at this config — >= 100x pins
         it so a rate regression fails CI.  (On the actual temperature.nc
         frame, a rougher field, the same config measures 72.1x vs the
-        reference's logged 57.6-62x — BENCHMARKS.md parity table.)  The
+        reference's logged 57.6-62x — docs/PARITY.md.)  The
         synthetic fallback fixture (no /root/reference data) compresses
         differently; it keeps a looser floor.
         """

@@ -147,7 +147,7 @@ class TestWriteCapableFilter:
             f"chunks not compressed: {stored} vs {data.nbytes}"
 
     def test_plain_write_matches_tpu_chunks(self, small_frame, tmp_path):
-        """Chunks from the plugin's CPU encoder == chunks from the TPU
+        """Chunks from the plugin's CPU encoder == chunks from the device
         (XLA-CPU here) write path, byte for byte."""
         h5py = pytest.importorskip("h5py")
         whdf5.register_plugin_path()
@@ -162,11 +162,11 @@ class TestWriteCapableFilter:
             d1 = whdf5.create_filtered_dataset(f, "plain", data.shape,
                                                params)
             d1[...] = data
-            whdf5.write_filtered_dataset(f, "tpu", data, params.to_config())
+            whdf5.write_filtered_dataset(f, "dev", data, params.to_config())
         with h5py.File(path, "r") as f:
             c_plain = f["plain"].id.read_direct_chunk((0, 0, 0))[1]
-            c_tpu = f["tpu"].id.read_direct_chunk((0, 0, 0))[1]
-        assert bytes(c_plain) == bytes(c_tpu)
+            c_dev = f["dev"].id.read_direct_chunk((0, 0, 0))[1]
+        assert bytes(c_plain) == bytes(c_dev)
 
     def test_pointwise_filter_roundtrip(self, small_frame, tmp_path):
         h5py = pytest.importorskip("h5py")

@@ -38,7 +38,7 @@ def test_two_process_mesh():
         try:
             # budget: the cross-process spatial encode compiles the full
             # pipeline in both workers (~2-4 min cold on this 1-core host;
-            # the persistent /tmp/jax_cache makes re-runs fast)
+            # the persistent compile cache makes re-runs fast)
             out, _ = p.communicate(timeout=900)
         except subprocess.TimeoutExpired:
             for q in procs:
